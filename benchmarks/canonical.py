@@ -1,5 +1,5 @@
-"""The reference's canonical workload, reproduced exactly (VERDICT r4
-next-step #2): one committed parity frame of `RayTracerTestApp::MainLoop`
+"""The reference's canonical workload, reproduced exactly: one committed
+parity frame of `RayTracerTestApp::MainLoop`
 (/root/reference/Applications/RayTracerTestApp.h:103-207), assembled from
 this framework's public components.
 
@@ -29,10 +29,10 @@ Reference configuration (file:line cites into RayTracerTestApp.h):
   (linear, no gamma encode)                                 :425-455
 
 Usage:
-  python benchmarks/canonical.py                 # full 500^2 x 100 spp (TPU)
+  python benchmarks/canonical.py                 # full 500^2 x 100 spp (GPU)
   python benchmarks/canonical.py --golden        # write the small CPU golden
   python benchmarks/canonical.py --res 64 --spp 4 --check-golden
-Writes benchmarks/canonical.json + benchmarks/data/canonical_500.png.
+Writes benchmarks/data/canonical_500.png and prints the stats as JSON.
 """
 
 import argparse
@@ -188,7 +188,9 @@ def render(res, spp, cap=40, progress=False):
         # one camera ray per sample; the reference Li casts no shadow rays
         "rays_per_sec": round(res * res / sec_per_pass, 1),
         "img_mean": round(float(img.mean()), 5),
-        "device": str(jax.devices()[0]),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
     }
     return img, stats
 
@@ -225,9 +227,6 @@ def main():
     stats["png"] = os.path.relpath(png,
                                    os.path.dirname(os.path.abspath(__file__))
                                    + "/..")
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "canonical.json"), "w") as f:
-        json.dump(stats, f, indent=1)
     print(json.dumps(stats))
 
 

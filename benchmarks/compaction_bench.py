@@ -1,21 +1,21 @@
-"""Wavefront-compaction speedup measurement (VERDICT r2 next-step #3).
+"""Wavefront-compaction speedup measurement.
 
 Renders a mixed diffuse/conductor/dielectric Cornell scene (mesh walls
-through the packed octree + analytic spheres) at depth 8 — where the alive
+through the octree + analytic spheres) at depth 8 — where the alive
 fraction decays enough that carrying dead rays through the full BSDF/NEE
 math dominates — with and without between-bounce compaction
 (integrator.render_pass_compact), and reports the speedup. The behavior
 being matched: the reference's per-pixel threads simply *finish* when a
 path terminates, so dead pixels cost nothing
-(/root/reference/Applications/RayTracerTestApp.h:361-366); on TPU the
-static-shape analog is gathering the alive rays into the smallest
-quantized bucket each bounce.
+(/root/reference/Applications/RayTracerTestApp.h:361-366); on an
+accelerator the static-shape analog is gathering the alive rays into the
+smallest quantized bucket each bounce.
 
 Sample values are identical either way (tests/test_compaction.py); this
 harness only measures time.
 
 Usage: python benchmarks/compaction_bench.py [--res 256] [--depth 8]
-       [--passes 8] [--out benchmarks/compaction.json]
+       [--passes 8] [--out FILE]
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def build_scene(use_octree, use_pallas):
+def build_scene(use_octree):
     """Cornell walls (mesh) + mirror + glass spheres: three BSDF kinds so
     per-bounce material mixes stay heterogeneous through depth 8."""
     import jax.numpy as jnp
@@ -41,7 +41,7 @@ def build_scene(use_octree, use_pallas):
     pos, idx, uv, mats, (lc, le1, le2) = mesh_gen.cornell_box(2.0)
     mesh = trimod.MeshData.build(pos, idx, uvs=uv)
     return Scene.build(
-        use_octree=use_octree, use_pallas=use_pallas,
+        use_octree=use_octree,
         materials=[
             {"kind": "diffuse", "albedo_rgb": (0.73, 0.73, 0.73)},
             {"kind": "diffuse", "albedo_rgb": (0.65, 0.05, 0.05)},
@@ -72,7 +72,7 @@ def main():
     ap.add_argument("--passes", type=int, default=8)
     ap.add_argument("--quantum", type=int, default=1024)
     ap.add_argument("--octree", type=int, default=0,
-                    help="route the Cornell walls through the packed octree")
+                    help="route the Cornell walls through the octree")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args()
 
@@ -82,7 +82,7 @@ def main():
     from computational_ray_tracer_tpu.models import integrator as integ
     from computational_ray_tracer_tpu.ops import camera as cam
 
-    scene = build_scene(bool(args.octree), bool(args.octree))
+    scene = build_scene(bool(args.octree))
     res = args.res
     camera = cam.PerspectiveCamera.create((0, 0, -2.8), (res, res),
                                           fov_y=50.0, look_at=(0, 0, 0))
@@ -123,7 +123,9 @@ def main():
     dt_comp, mean_comp = timeit(compact_pass, "compacted")
 
     out = {
-        "device": str(jax.devices()[0]),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
         "res": res, "max_depth": args.depth, "passes": args.passes,
         "compact_quantum": args.quantum, "octree": bool(args.octree),
         "alive_frac_per_depth": [round(float(a), 4) for a in alive],
@@ -133,12 +135,10 @@ def main():
         "img_mean_full": round(mean_full, 6),
         "img_mean_compact": round(mean_comp, 6),
     }
-    out_path = args.out or os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "compaction.json")
-    with open(out_path, "w") as fh:
-        json.dump(out, fh, indent=1)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
     print(json.dumps(out))
-    print(f"wrote {out_path}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Equal-error benchmark: MSE-vs-spp and MSE-vs-wall-time for
 {independent, stratified, sobol, sobol_global} x {simple, mis} on the
-Cornell headline scene (VERDICT r2 next-step #2).
+Cornell headline scene.
 
 Rays/s alone can hide a quality regression (or mask a quality win): the
 r1->r2 headline drop came from the path integrator gaining real MIS. This
@@ -72,9 +72,8 @@ def main():
                                        sensor, sample_idx, chunk)
 
         # untimed warm-up pass: compile must never pollute the wall-time
-        # axis (VERDICT r4 weak #6: every first curve point carried the
-        # compile — spp16 read 12.9 s where spp64 read 1.03 s on the same
-        # config, corrupting time-to-target interpolation). The warm-up
+        # axis (it would corrupt the time-to-target interpolation). The
+        # warm-up
         # uses a sentinel sample index: this runtime services a repeat of
         # an identical dispatch near-instantly, so warming on index 0
         # would make the first timed chunk read ~0.

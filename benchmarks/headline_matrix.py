@@ -34,9 +34,6 @@ def main():
     scene, camera, _ = _cornell_setup(res=res, spp=4)
     rays_per_sample = 1 + (args.depth - 1) + args.depth
     rows = []
-    # (spp_block axis removed: measured ~1.5x pessimization everywhere in
-    # the committed headline_matrix.json; the knob and its render path were
-    # retired per VERDICT r3 item 6.)
     for mode, kind in itertools.product(
             ("path", "simple"), ("sobol", "independent", "sobol_global")):
         cfg = integ.RenderConfig(

@@ -4,7 +4,7 @@ JSON report (benchmarks/configs_report.json + stdout).
 Usage:  python benchmarks/run_configs.py [--scale small|full]
 
 small (default): CPU-friendly resolutions for CI; full: the BASELINE.json
-sizes for TPU measurement.
+sizes for GPU measurement.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ def _timer():
 
 
 def warm_cold_render(scene, camera, cfg, chunk, rays_per_pass):
-    """Cold/warm split (VERDICT r4 weak #2: a single cold timer buried a
-    66M rays/s warm path under compile time): one timed chunk that
+    """Cold/warm split: one timed chunk that
     includes compilation, then the remaining passes timed warm. Returns
     (film, sensor, timing dict with BOTH numbers)."""
     import jax
@@ -148,8 +147,7 @@ def config3_mesh_octree_textured(scale):
     el_b = _timer()
     if scale == "full":
         # BASELINE's "triangle-mesh OBJ scene via octree, textured" at the
-        # repo's real mesh scale (VERDICT r4 weak #2: the old full-scale
-        # config ran on 8k triangles while the bench suite runs 327k):
+        # repo's real mesh scale:
         # the 327,680-tri displaced icosphere + checker texture.
         v, f, uv = mesh_gen.displaced_icosphere(7)
         mesh = trimod.MeshData.build(v, f, uvs=uv)
@@ -302,9 +300,9 @@ def config5_inverse(scale):
         timing["warm_sec_per_step"] = round(
             (step_ts[-1] - step_ts[0]) / (len(step_ts) - 1), 4)
 
-    # Recovery metric in REFLECTANCE space (VERDICT r4 weak #7: sigmoid
-    # coefficient space is non-unique, so a coeff MAE reads as failure
-    # even when the recovered spectra match): per-material
+    # Recovery metric in REFLECTANCE space (sigmoid coefficient space is
+    # non-unique, so a coeff MAE reads as failure even when the recovered
+    # spectra match): per-material
     # |Delta reflectance| weighted by the visible-wavelength sampling pdf
     # — the distribution the renderer actually observes. The raw dense-
     # grid MAE is dominated by the 360-400/700-830 nm tails where the
@@ -355,8 +353,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import bench
-    bench._enable_compile_cache()
+    from computational_ray_tracer_tpu.utils import compile_cache
+    compile_cache.enable()
     report = {"scale": args.scale, "device": str(jax.devices()[0]),
               "configs": {}}
     for name, fn in CONFIGS:

@@ -1,5 +1,5 @@
 """Multi-device WEAK-scaling harness for the sharded renderer
-(BASELINE.md row 4; VERDICT r3 item 7 methodology rewrite).
+(BASELINE.md row 4).
 
 Design: per-device workload is CONSTANT — at dp devices the image is
 (res x res*dp) with pixels sharded over dp, so every device renders
@@ -7,13 +7,10 @@ exactly res^2 pixels per pass regardless of dp. Ideal weak scaling is
 flat wall time; efficiency = T(dp=1) / T(dp).
 
 METHODOLOGY NOTE (what this file's output can and cannot show).
-This repo's test/CI environment exposes ONE real TPU chip and a
-*virtual* CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8)
-on a host with very few physical cores (2 in the round-4 image). Virtual
-CPU devices share those cores, so wall-clock "efficiency" measured here
-is dominated by host oversubscription, NOT by the renderer or its
-collectives — at 2 cores, dp=8 weak scaling CANNOT be flat no matter how
-good the sharding is. What the virtual mesh DOES demonstrate:
+On a *virtual* CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8)
+the virtual devices share the host's cores, so wall-clock "efficiency" is
+dominated by host oversubscription, NOT by the renderer or its
+collectives. What the virtual mesh DOES demonstrate:
 
   1. correctness: the sharded image is asserted bit-identical to the
      single-device render of the same image (the determinism contract —
@@ -24,14 +21,12 @@ good the sharding is. What the virtual mesh DOES demonstrate:
   3. per-device work really is constant: the per-device ray count is
      reported per row.
 
-The >80% BASELINE target is a REAL-SLICE claim: the film psum is the only
-cross-device traffic (a few MB per pass over ICI at >100 GB/s vs seconds
-of per-pass compute), so the expected real-chip weak-scaling loss is the
-collective's microseconds — but it must be measured on hardware this
-environment does not provide. The wall times below are committed for the
-record WITH this caveat, not as evidence about the renderer.
+The >80% BASELINE target is a claim about real devices: the film psum is
+the only cross-device traffic (a few MB per pass), so the expected
+weak-scaling loss is the collective's time. It must be measured on GPUs
+(four H100s joined by NVLink: not measured yet).
 
-Usage: PYTHONPATH= JAX_PLATFORMS=cpu \
+Usage: JAX_PLATFORMS=cpu \
        XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python benchmarks/scaling.py [--res 64] [--passes 4]
 Writes benchmarks/scaling.json.

@@ -1,8 +1,8 @@
-"""computational_ray_tracer_tpu — a TPU-native differentiable spectral path tracer.
+"""computational_ray_tracer_tpu — a differentiable spectral path tracer in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference C++
-renderer ``GiboDidact/Computational_ray_tracer`` (see SURVEY.md), re-architected
-TPU-first:
+A JAX/XLA framework with the capabilities of the reference C++ renderer
+``GiboDidact/Computational_ray_tracer`` (see SURVEY.md), re-architected for
+accelerators (one CUDA kernel, for octree traversal on NVIDIA GPUs):
 
 - wavefront ray batches (SoA jnp arrays) instead of recursive per-ray C++
 - flattened tensor octree instead of pointer chasing
@@ -11,7 +11,7 @@ TPU-first:
 - film accumulation as weighted per-pixel sums, resolved through a camera
   PixelSensor model
 - differentiable pixel radiance w.r.t. material / light parameters
-- multi-chip scaling via ``jax.sharding.Mesh`` + ``shard_map``
+- multi-device scaling via ``jax.sharding.Mesh`` + ``shard_map``
 
 Subpackages
 -----------

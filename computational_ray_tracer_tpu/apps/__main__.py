@@ -17,6 +17,8 @@ def main(argv=None):
     p.add_argument("app", choices=APP_NAMES)
     p.add_argument("--out", default="out", help="output directory")
     args, extra = p.parse_known_args(argv)
+    from computational_ray_tracer_tpu.utils import compile_cache
+    compile_cache.enable()
     mod = importlib.import_module(
         f"computational_ray_tracer_tpu.apps.{args.app}")
     return mod.main(outdir=args.out)

@@ -2,7 +2,7 @@
 
 Capability parity with ``Geometry/Segment.h:4-163`` (orientation/turn tests,
 segment-segment intersection with and without boundary, point-segment and
-point-triangle distance, line-line intersection), TPU-first: every predicate
+point-triangle distance, line-line intersection), array-first: every predicate
 is an elementwise jnp function over arrays of points/segments, usable both
 on device (batch) and on host scalars."""
 

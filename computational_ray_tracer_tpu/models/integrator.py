@@ -3,7 +3,7 @@
 This is the layer the reference only *sketched* (``RayTracer/Integrator.h:
 4-12`` names RandomWalk/SimplePath/Path as intent; the only implemented
 estimator is the inline direct-lighting ``Li`` lambda of
-``RayTracerTestApp.h:218-284``). TPU-first design (SURVEY §7 stance #1):
+``RayTracerTestApp.h:218-284``). Wavefront design (SURVEY §7 stance #1):
 
 - rays live as SoA wavefronts ``(N, 3)``; one ``lax.scan`` over bounce depth
   replaces recursion; alive masks replace early returns;
@@ -202,28 +202,22 @@ def li_direct(scene, o, d, wl, pixel, sample_idx, cfg):
     cos_i = jnp.maximum(jnp.sum(wi * si.n, axis=-1), 0.0)
     # Invalid pixels (camera ray missed) must carry DEAD shadow rays:
     # their placeholder surface point is the origin — typically INSIDE the
-    # scene geometry — and an alive phantom ray from there does a worst-case
-    # traversal before being masked out of the image. Measured on the 327k-
-    # tri mesh bench: phantom rays cost ~1.4 s of a 2.7 s pass
-    # (benchmarks/profile_shadow.json vs profile_mesh_pass.py stage times).
+    # scene geometry — and an alive phantom ray from there would do a
+    # worst-case traversal before being masked out of the image.
     dist = jnp.where(si.valid, dist, -1.0)
     occluded = scene_occluded(scene, si.p, wi, dist, spawn_eps(si, cfg),
-                              n=si.n, coherent=False)
+                              n=si.n)
     contrib = f * li_val * (cos_i / jnp.maximum(pdf, 1e-12))[..., None]
     contrib = jnp.where((si.valid & ~occluded)[..., None], contrib, 0.0)
     return L + contrib
 
 
-def _bounce_step(scene, cfg, mode, state, depth, pixel, sample_idx,
-                 coherent=True):
+def _bounce_step(scene, cfg, mode, state, depth, pixel, sample_idx):
     """One bounce of the wavefront path loop, on whatever ray set ``state``
     holds (the full wavefront under lax.scan, or a compacted alive-only
     bucket under the host-driven loop). Every random decision inside is a
     pure function of (seed, pixel, sample_idx, dim(depth)) — the ray set
     membership cannot change any sample value (determinism contract).
-
-    ``coherent`` (static): camera-coherent wavefront hint, forwarded to the
-    packet octree kernel (bounce depths use narrow incoherent packets).
 
     ``state`` carries per-ray: o, d, beta, L, alive, specular, pdf_prev,
     n_prev, lam (hero wavelengths), lam_pdf. Returns (new_state,
@@ -243,7 +237,7 @@ def _bounce_step(scene, cfg, mode, state, depth, pixel, sample_idx,
         wl_cur = spec.SampledWavelengths(state["lam"], state["lam_pdf"])
 
         t_max = jnp.where(alive, jnp.inf, -1.0)
-        si, mid, _ = scene_intersect(scene, o, d, t_max, coherent=coherent)
+        si, mid, _ = scene_intersect(scene, o, d, t_max)
         hit = si.valid & alive
         mrow = mat.MaterialView.create(scene.materials, mid)
         tex = _tex_coeffs(scene, si)
@@ -326,17 +320,12 @@ def _bounce_step(scene, cfg, mode, state, depth, pixel, sample_idx,
                                      eta_k=(eta_s, k_s),
                                      enable_rough=scene.has_rough)
             cos_l = jnp.maximum(jnp.sum(wi_l * si.n, axis=-1), 0.0)
-            # NEE shadow rays are never camera-coherent — ambient lights
-            # sample cosine-hemisphere directions and area lights random
-            # surface points, so even the depth-0 shadow wavefront needs
-            # the incoherent packet shape (measured: 26.8s vs 1.3s for
-            # one depth-0 bounce of the textured-dragon flagship).
             # Rays without a surface hit carry DEAD shadow rays (see
             # li_direct: phantom rays from the placeholder origin point
-            # do worst-case traversals before being masked out).
+            # would do worst-case traversals before being masked out).
             occ = scene_occluded(scene, si.p, wi_l,
                                  jnp.where(hit, dist, -1.0), eps_h,
-                                 n=si.n, coherent=False)
+                                 n=si.n)
             nee = beta * f * li_val * (cos_l / jnp.maximum(pdf_l, 1e-12))[..., None]
             if use_mis:
                 # Delta lights (point/distant) can't be BSDF-sampled: w=1.
@@ -397,10 +386,9 @@ def _bounce_step(scene, cfg, mode, state, depth, pixel, sample_idx,
 
 
 # Spectral-cache column budget. Beyond this, _cache_select's unrolled
-# where-chain per material/light per bounce inflates the traced graph (the
-# TPU compiler SIGILLs on large unrolled render graphs — CLAUDE.md) and the
-# (N, S, C) carry inflates HBM; fall back to per-site interpolation, which
-# itself gathers above spectrum._MXU_ROWS_MAX rows. Same 32-row rationale.
+# where-chain per material/light per bounce inflates the traced graph and
+# the (N, S, C) carry inflates device memory; fall back to per-site
+# interpolation.
 SPECTRAL_CACHE_MAX_COLS = 32
 
 
@@ -412,18 +400,14 @@ def _use_spectral_cache(scene):
 
 def _spectral_cache(scene, lam):
     """Per-ray evaluation of EVERY dense spectral table at the hero
-    wavelengths, in ONE one-hot MXU dot: (..., S, L + 3M) ordered
+    wavelengths, in one interpolation: (..., S, L + 3M) ordered
     [lights.spd | materials.emission | materials.eta | materials.k].
 
-    The wavelengths are fixed for a path's whole bounce loop, but the
-    expensive part of every dense-table interpolation — the (N*S, 471)
-    one-hot weight matrix and its dot — depends ONLY on the wavelengths.
-    Evaluating the stacked tables once per pass and selecting rows per
-    bounce removes ~3 interp sites x max_depth dots from the loop
-    (measured ~2-4 ms per site per bounce at 256^2 — roughly a third of
-    the whole Cornell pass). Column results of the dot are bitwise
-    identical to the per-bounce sample_dense_rows_multi calls it
-    replaces."""
+    The wavelengths are fixed for a path's whole bounce loop, so the
+    interpolation indices and weights depend only on them. Evaluating the
+    stacked tables once per pass and selecting rows per bounce removes ~3
+    interpolation sites x max_depth from the loop. The values equal the
+    per-bounce sample_dense_rows calls they replace."""
     stack = jnp.concatenate([scene.lights.spd, scene.materials.emission,
                              scene.materials.eta, scene.materials.k], axis=0)
     return spec.sample_dense_multi(stack.T, lam)     # (..., S, C)
@@ -536,13 +520,12 @@ def li_random_walk(scene, o, d, wl, pixel, sample_idx, cfg):
 def _tile_perm(w, h, tile=32):
     """Pixel order that walks the image in tile×tile screen blocks.
 
-    The Pallas packet traversal shares one stack per 1024-ray packet; in
-    raster order a packet spans two full image rows (the whole horizontal
-    FOV) and the shared walk visits nearly the union of the tree, while a
-    32x32 tile is a tight frustum. Returns (perm, inv): ray i handles pixel
-    perm[i]; per-ray output row inv[p] belongs to pixel p. Sample values are
-    keyed by pixel id so the swizzle changes no rendered value (determinism
-    contract) — only wavefront order."""
+    Neighbouring rays in a tile take neighbouring paths through the octree,
+    so consecutive threads of the traversal read the same nodes. Returns
+    (perm, inv): ray i handles pixel perm[i]; per-ray output row inv[p]
+    belongs to pixel p. Sample values are keyed by pixel id so the swizzle
+    changes no rendered value (determinism contract), only wavefront
+    order."""
     ids = jnp.arange(w * h, dtype=jnp.uint32).reshape(h, w)
     blocks = ids.reshape(h // tile, tile, w // tile, tile)
     perm = blocks.transpose(0, 2, 1, 3).reshape(-1)
@@ -639,8 +622,8 @@ def _compact_fns(cfg: RenderConfig, mode: str, camera, filter_obj, sensor):
     Jitted pieces of the compacted bounce loop, cached per config.
 
     XLA needs static shapes, so "process only alive rays" becomes: sort
-    rays alive-first (sub-ordered by direction octant so the packet
-    traversal keeps coherent frustums), take the smallest quantized bucket
+    rays alive-first (sub-ordered by direction octant and origin cell, so
+    neighbouring rays traverse alike), take the smallest quantized bucket
     that covers the exact alive count, bounce that bucket, scatter back.
     The alive count is read back to the host once per bounce — the only
     sync — to pick the bucket size; each distinct bucket size compiles
@@ -676,13 +659,11 @@ def _compact_fns(cfg: RenderConfig, mode: str, camera, filter_obj, sensor):
 
     @jax.jit
     def select_order(alive, d, o):
-        # Packet coherence for the octree kernel needs BOTH direction and
-        # origin locality, so alive rays sort by (direction octant, 8^3
-        # Morton cell of the origin), dead rays last — the shared key of
-        # scene._packet_order. Compiled ONCE on the full wavefront (the
-        # radix sort, not lax.sort — see scene.radix_order); the caller
-        # slices the first `bucket` entries outside jit, so no per-bucket
-        # recompile of the sort.
+        # Alive rays sort by (direction octant, 8^3 Morton cell of the
+        # origin), dead rays last (scene._packet_order). Compiled ONCE on
+        # the full wavefront (the radix sort, see scene.radix_order); the
+        # caller slices the first `bucket` entries outside jit, so no
+        # per-bucket recompile of the sort.
         from computational_ray_tracer_tpu.models.scene import _packet_order
         return _packet_order(o, d, alive)
 
@@ -696,13 +677,9 @@ def _compact_fns(cfg: RenderConfig, mode: str, camera, filter_obj, sensor):
 
     @jax.jit
     def bounce_sub(scene, sub, depth, pixel_sub, sample_idx):
-        # One program per BUCKET SIZE only. The former static `coherent`
-        # flag compiled a separate depth-0 program whose only difference
-        # was the packet kwargs of the closest-hit kernel — and with the
-        # r4 kernel defaults (rs8, no frustum) those are identical anyway,
-        # while NEE shadow rays always take the sorted incoherent path.
+        # one program per bucket size
         new, _ = _bounce_step(scene, cfg, mode, sub, depth, pixel_sub,
-                              sample_idx, coherent=False)
+                              sample_idx)
         return new
 
     @jax.jit
@@ -735,9 +712,8 @@ def _compact_fns(cfg: RenderConfig, mode: str, camera, filter_obj, sensor):
 
 # Per-(cfg, camera) alive-count schedules from completed compacted passes:
 # later passes predict bucket sizes from the last pass instead of paying a
-# device->host count readback per bounce (a full sync — measured dominant
-# at depth 8 on remote-attached TPUs: 11.2 s/pass where the bounce kernels
-# themselves are sub-second).
+# device->host count readback per bounce (each one a host sync that drains
+# the device queue).
 _BUCKET_SCHEDULE = {}
 
 
@@ -787,15 +763,13 @@ def _compact_pass_exact(scene, cfg, fns, sched_key, sample_idx, camera):
         # Buckets above n/2 round UP to the full wavefront: an in-place
         # sort (permute state + pixel, no scatter-back) reuses the
         # full-size bounce program instead of compiling a fresh odd-size
-        # program per pass (an intermediate-size bounce compile measured
-        # 28.6 s on the flagship — more than the full-size one).
+        # program per pass.
         bucket = n if k > n // 2 else min(n, -(-k // q) * q)
         if depth == 0 and bucket >= n:
             # Camera wavefront: the tile-swizzled launch order IS the
             # coherent order. The (octant, Morton-of-origin) resort keys
             # on the random LENS position for a thin-lens camera and
-            # shuffles tiles into noise (measured: 579 -> 2127 ms for the
-            # depth-0 flagship bounce).
+            # would shuffle tiles into noise.
             state = bounce_sub(scene, state, jnp.uint32(depth), pixel,
                                jnp.uint32(sample_idx))
             continue
@@ -837,10 +811,9 @@ def _compact_pass_predicted(scene, cfg, fns, sched, sample_idx):
         # Bucket sizing is IDENTICAL to the exact path's formula (no
         # headroom): any other sizing creates bucket sizes the exact pass
         # never compiled, and each novel size costs a fresh bounce-program
-        # compile — measured 6.2 s/pass on the flagship's 4-pass warm
-        # window vs 0.32 s steady (x1.15-headroom sizing). Counts that
-        # drift across a quantum boundary just overflow-redo that pass
-        # (rare, and both sizes are compiled after the first redo).
+        # compile. Counts that drift across a quantum boundary just
+        # overflow-redo that pass (rare, and both sizes are compiled after
+        # the first redo).
         k_pred = max(sched[depth] if depth < len(sched) else 0, 1)
         bucket = n if k_pred > n // 2 else min(n, -(-k_pred // q) * q)
         # the actual count must fit the bucket (checked on device)
@@ -870,13 +843,8 @@ def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     """n_passes samples-per-pixel in ONE device program: lax.scan over
     per-sample passes accumulating (rgb_sum, weight_sum). Amortizes
     host->device dispatch over the chunk (one launch instead of n).
-
-    (A multi-sample-wavefront variant — k*W*H rays in flight per scan step
-    — was measured a uniform ~1.5x pessimization across 12 integrator x
-    sampler configs on TPU, benchmarks/headline_matrix.json, and was
-    removed: bigger wavefronts push the bounce loop's working set out of
-    VMEM-resident fusion windows and every elementwise op pays full HBM
-    round-trips.)"""
+    Each scan step carries one W*H wavefront; a k*W*H multi-sample
+    wavefront is not implemented."""
     w, h = cfg.resolution
 
     def body(carry, j):
@@ -894,9 +862,7 @@ def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
 # Jitted render programs cached ACROSS render() calls (keyed by config +
 # component identities — make_filter/make_sensor are memoized per config,
 # so the ids are stable): a fresh jit object per render() call would pay
-# a full XLA recompile on every resume-style call (measured: a "warm"
-# second render() of the 256^2 Cornell config spent ~2 minutes
-# recompiling a program that renders in 0.4 s).
+# a full XLA recompile on every resume-style call.
 _RENDER_PROG_CACHE = {}
 
 
@@ -939,10 +905,9 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
     per-spp progress callbacks; larger chunks amortize dispatch overhead.
 
     cfg.compact routes each pass through the host-driven compacted bounce
-    loop (render_pass_compact) — the only code path that survives deep
-    renders at large resolutions (a 512² depth-8 full-wavefront program
-    trips the TPU watchdog, benchmarks/compaction.json) — with identical
-    sample values (tests assert compact == non-compact)."""
+    loop (render_pass_compact), which carries only the alive rays through
+    each bounce, with identical sample values (tests assert compact ==
+    non-compact)."""
     filter_obj = make_filter(cfg)
     sensor = make_sensor(cfg)
     if film is None:

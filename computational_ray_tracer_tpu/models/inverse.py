@@ -1,7 +1,7 @@
 """Differentiable inverse rendering (BASELINE config 5).
 
 The reference is a forward renderer only; differentiability is this
-framework's TPU-native extension (BASELINE.json north star): pixel radiance
+framework's JAX-native extension (BASELINE.json north star): pixel radiance
 is differentiable w.r.t. material / light parameters through the wavefront
 integrators, with *detached sampling* — every discrete/sampling decision
 (wavelengths, lens/filter offsets, BSDF directions, RR, light picks, hit

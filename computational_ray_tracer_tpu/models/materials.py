@@ -3,11 +3,11 @@
 The reference sketches its shading model in design notes only
 (``RayTracer/Shading.h:7-18``: Lambertian r/π, Fresnel reflect/refract with
 bounces; ``RayTracerTestApp.h:246-266``: RGBAlbedo material × lights). This
-module *implements* that layer TPU-first:
+module *implements* that layer array-first:
 
 - materials live in an SoA table (one row per material); each hit gathers its
   row, and every BSDF kind is evaluated branch-free with `where` selection
-  (sorted/masked dispatch is the TPU analog of virtual BSDF calls);
+  (sorted/masked dispatch is the array analog of virtual BSDF calls);
 - reflectances are sigmoid-polynomial spectra evaluated at the ray's 8 hero
   wavelengths; conductors carry dense spectral eta/k (the reference's metal
   spectra); dielectrics use Sellmeier-style dense IoR and can disperse;
@@ -90,14 +90,11 @@ class MaterialTable:
             if "emission_dense" in m:
                 emission[i] = np.asarray(m["emission_dense"], np.float32)
             elif "emission_rgb" in m:
-                # scene-setup math pinned to host CPU (remote-TPU eager
-                # dispatches cost seconds; see lights.py)
-                with jax.default_device(jax.devices("cpu")[0]):
-                    e = colorlib.RGBIlluminantSpectrum.from_rgb(
-                        jnp.asarray(m["emission_rgb"], jnp.float32))
-                    lam = jnp.asarray(data.DENSE_LAMBDA, jnp.float32)
-                    emission[i] = np.asarray(e(lam)) * m.get(
-                        "emission_scale", 1.0)
+                e = colorlib.RGBIlluminantSpectrum.from_rgb(
+                    jnp.asarray(m["emission_rgb"], jnp.float32))
+                lam = jnp.asarray(data.DENSE_LAMBDA, jnp.float32)
+                emission[i] = np.asarray(e(lam)) * m.get(
+                    "emission_scale", 1.0)
             if "metal" in m:
                 eta[i] = data.METAL_ETA[m["metal"]]
                 kk[i] = data.METAL_K[m["metal"]]
@@ -247,7 +244,7 @@ def _gather(mat: MaterialTable, mid):
 
 
 from computational_ray_tracer_tpu.ops.numeric import select_rows as \
-    _select_rows  # gather-free small-table row select (TPU)
+    _select_rows  # clamped small-table row select
 
 
 @jax.tree_util.register_pytree_node_class

@@ -16,8 +16,7 @@ with ``where`` masks. ``scene_occluded`` is the shadow-ray predicate
 from __future__ import annotations
 
 import dataclasses
-import os
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import jax
@@ -26,6 +25,7 @@ import jax.numpy as jnp
 from computational_ray_tracer_tpu.ops import shapes as shp
 from computational_ray_tracer_tpu.ops import triangle as trimod
 from computational_ray_tracer_tpu.ops import octree as octmod
+from computational_ray_tracer_tpu.ops import traversal
 from computational_ray_tracer_tpu.models.materials import MaterialTable
 from computational_ray_tracer_tpu.models.lights import LightTable
 
@@ -38,7 +38,6 @@ class Scene:
     disks: Optional[shp.DiskTable]
     mesh: Optional[trimod.MeshData]
     octree: Optional[octmod.Octree]
-    packed_octree: Optional[Any]          # pallas_octree.PackedOctree
     materials: MaterialTable
     lights: LightTable
     # material id per shape instance, per type
@@ -49,28 +48,26 @@ class Scene:
     texture: Optional[jnp.ndarray]        # (Ht, Wt, 3) sigmoid coeffs image
     tri_mask: Optional[jnp.ndarray]       # (F,) backface-cull keep mask
     wr: float = 100.0                     # static world radius (aux data)
-    use_pallas: bool = False              # Pallas kernel for mesh intersect
     has_rough: bool = True                # any GGX materials (static; gates
                                           # the glossy-lobe work in BSDFs)
 
     _FIELDS = ("spheres", "cylinders", "disks", "mesh", "octree",
-               "packed_octree", "materials", "lights", "sphere_mat",
+               "materials", "lights", "sphere_mat",
                "cylinder_mat", "disk_mat", "mesh_tri_mat", "texture",
                "tri_mask")
 
     def tree_flatten(self):
         return (tuple(getattr(self, f) for f in self._FIELDS),
-                (self.wr, self.use_pallas, self.has_rough))
+                (self.wr, self.has_rough))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children, wr=aux[0], use_pallas=aux[1], has_rough=aux[2])
+        return cls(*children, wr=aux[0], has_rough=aux[1])
 
     @classmethod
     def build(cls, materials, lights, spheres=None, cylinders=None,
               disks=None, mesh=None, use_octree=True, texture_rgb=None,
-              backface_cull_dir=None, use_pallas=False,
-              octree_capacity=None):
+              backface_cull_dir=None, octree_capacity=None):
         """Host-side scene assembly. Shape dicts carry a `material` index.
 
         texture_rgb: (H, W, 3) linear RGB image — pre-converted to sigmoid
@@ -88,7 +85,6 @@ class Scene:
         dsk, dsk_m = tab(shp.DiskTable.build, disks)
 
         tree = None
-        packed = None
         tri_mat = None
         tri_mask = None
         if mesh is not None:
@@ -101,9 +97,7 @@ class Scene:
             if use_octree:
                 cap = (octree_capacity if octree_capacity is not None
                        else octmod.TRIANGLE_CAPACITY)
-                tree, packed = octmod.build_octree(mesh_data, capacity=cap,
-                                                   pack=True,
-                                                   tri_mask=tri_mask)
+                tree = octmod.build_octree(mesh_data, capacity=cap)
             mesh = mesh_data
 
         tex = None
@@ -121,7 +115,7 @@ class Scene:
 
         # Static world radius (host-side, at build time): conservative bound
         # used for "infinite" distant/ambient shadow rays. Uses the host
-        # mesh stash — device scalar readbacks are slow on remote TPUs.
+        # mesh stash, which the octree build reads too.
         r = 1.0
         if mesh is not None:
             pos_np, _ = octmod.host_mesh_arrays(mesh)
@@ -133,9 +127,9 @@ class Scene:
         from computational_ray_tracer_tpu.models.materials import (
             ROUGH_CONDUCTOR)
         has_rough = bool(np.any(np.asarray(mats.kind) == ROUGH_CONDUCTOR))
-        return cls(sph, cyl, dsk, mesh, tree, packed, mats, lts, sph_m,
+        return cls(sph, cyl, dsk, mesh, tree, mats, lts, sph_m,
                    cyl_m, dsk_m, tri_mat, tex, tri_mask, wr=10.0 * r,
-                   use_pallas=use_pallas, has_rough=has_rough)
+                   has_rough=has_rough)
 
     def world_radius(self):
         """Conservative scene bounding radius (static; safe under jit)."""
@@ -146,41 +140,14 @@ class Scene:
 TYPE_NONE, TYPE_SPHERE, TYPE_CYLINDER, TYPE_DISK, TYPE_MESH = 0, 1, 2, 3, 4
 
 
-def _use_packet_kernel(scene):
-    """The Pallas packet-traversal kernel is the default octree path on TPU
-    (VERDICT r1 item 2); the jnp lockstep traversal stays the CPU /
-    differentiability oracle. use_pallas forces the kernel (interpret mode
-    off-TPU, for tests)."""
-    return scene.packed_octree is not None and (
-        jax.default_backend() == "tpu" or scene.use_pallas)
-
-
-# Packet shape for INCOHERENT (bounce/shadow-at-depth) wavefronts. With
-# the fast (1, 8, 128)-block kernel layout the full 8x128 packet with the
-# exact per-ray vector walk wins even on the mixed distant+ambient NEE
-# shadow wavefront (r4 sweep on the 327k-tri bench scene: rs8/no-frustum
-# 349 ms vs rs4 423, rs2 529, rs1 702; the r3 narrow-packet preference was
-# an artifact of the 4x-slower (rs, 1, 128) codegen). Narrow sub-walks
-# remain available via CRT_INCOH_RAY_SUB for sweeps.
-INCOH_RAY_SUB = int(os.environ.get("CRT_INCOH_RAY_SUB", "8"))
-INCOH_FRUSTUM = os.environ.get("CRT_INCOH_FRUSTUM", "0") == "1"
-
-
-def _packet_kwargs(coherent):
-    if coherent:
-        return {}
-    return {"ray_sub": INCOH_RAY_SUB, "frustum": INCOH_FRUSTUM}
-
-
 def radix_order(key, n_bits=15, bits_per_pass=4):
     """Stable ascending argsort of small-range non-negative int32 keys via
     LSD radix passes built from cumsum + scatter.
 
     Semantically identical to ``jnp.argsort(key, stable=True)`` for keys in
-    [0, 2^n_bits), but compiles ~10x faster on TPU: ``lax.sort`` of a 262k
-    wavefront costs ~20 s of XLA compile time PER SHAPE (the dominant term
-    of the r3 flagship's 105 s first-pass compile), while the radix passes
-    are plain cumsum/gather/scatter HLOs."""
+    [0, 2^n_bits), built from plain cumsum/gather/scatter HLOs to keep
+    ``lax.sort`` of a 262k wavefront out of the compile. Whether it still
+    beats ``lax.sort`` on the GPU is not measured yet."""
     n = key.shape[0]
     r = 1 << bits_per_pass
     perm = jnp.arange(n, dtype=jnp.int32)
@@ -202,12 +169,8 @@ def radix_order(key, n_bits=15, bits_per_pass=4):
 
 def _packet_order(o, d, alive):
     """Sort permutation grouping rays by (direction octant, 8^3 Morton
-    cell of origin), dead rays last — the same key the compacted bounce
-    loop uses. An UNSORTED incoherent wavefront (e.g. NEE shadow rays
-    that mix a distant light's fixed direction with ambient
-    cosine-hemisphere samples per pixel) puts rays of every direction
-    family in every packet, and each packet visits the union of their
-    subtrees."""
+    cell of origin), dead rays last: the order of the compacted bounce
+    loop, which keeps neighbouring rays on neighbouring subtrees."""
     octant = ((d[..., 0] < 0) * 4 + (d[..., 1] < 0) * 2
               + (d[..., 2] < 0)).astype(jnp.int32)
     lo = jnp.min(jnp.where(alive[..., None], o, jnp.inf), axis=0)
@@ -234,36 +197,25 @@ def _packet_order(o, d, alive):
     return radix_order(key)
 
 
-def _mesh_closest_hit(scene, o, d, t_best, coherent=True):
+def _mesh_closest_hit(scene, o, d, t_best):
     if scene.octree is not None:
-        if _use_packet_kernel(scene):
-            from computational_ray_tracer_tpu.ops import pallas_octree
-            return pallas_octree.octree_intersect_pallas(
-                o, d, t_best, scene.packed_octree,
-                **_packet_kwargs(coherent))
-        return octmod.octree_traverse(
-            o, d, t_best, scene.octree, scene.mesh, scene.tri_mask)
-    if scene.use_pallas:
-        from computational_ray_tracer_tpu.ops import pallas_intersect
-        return pallas_intersect.mesh_intersect_pallas(
-            o, d, t_best, scene.mesh, scene.tri_mask)
+        return traversal.closest_hit(o, d, t_best, scene.octree, scene.mesh,
+                                     scene.tri_mask)
     return trimod.mesh_intersect_brute(o, d, t_best, scene.mesh,
                                        scene.tri_mask)
 
 
-def scene_intersect(scene: Scene, o, d, t_max, coherent=True):
+def scene_intersect(scene: Scene, o, d, t_max):
     """Closest hit across all shape types.
 
-    ``coherent`` (static): whether the wavefront is camera-coherent —
-    picks the packet shape for the Pallas octree kernel.
     Returns (si: SurfaceInfo, mat_id (,...) int32, tri_tests (...,) int32).
     """
-    hit = scene_intersect_t(scene, o, d, t_max, coherent=coherent)
+    hit = scene_intersect_t(scene, o, d, t_max)
     si, mat_id = scene_surface(scene, o, d, hit)
     return si, mat_id, hit[5]
 
 
-def scene_intersect_t(scene: Scene, o, d, t_max, coherent=True):
+def scene_intersect_t(scene: Scene, o, d, t_max):
     """Hit-distance phase only: (t_best, type_best, idx_best, b1, b2,
     tri_tests). Lets the integrator batch continuation + shadow rays into
     ONE intersection launch and evaluate surface info only for the
@@ -297,8 +249,7 @@ def scene_intersect_t(scene: Scene, o, d, t_max, coherent=True):
         t_best, type_best, idx_best, _ = fold(t_all, TYPE_DISK, t_best,
                                               type_best, idx_best)
     if scene.mesh is not None:
-        tm, ti, mb1, mb2, tests = _mesh_closest_hit(scene, o, d, t_best,
-                                                    coherent=coherent)
+        tm, ti, mb1, mb2, tests = _mesh_closest_hit(scene, o, d, t_best)
         tri_tests = tri_tests + tests
         better = tm < t_best
         t_best = jnp.where(better, tm, t_best)
@@ -373,7 +324,7 @@ def _empty_surface(o, d, t):
         wo=-d, backface=jnp.zeros(o.shape[:-1], bool))
 
 
-def scene_anyhit(scene: Scene, o, d, t_max, coherent=True):
+def scene_anyhit(scene: Scene, o, d, t_max):
     """Boolean any-hit test (Shape::IntersectP capability): does ANY shape
     intersect in (0, t_max)? Skips all the closest-hit machinery the shadow
     ray doesn't need — no winner argmin, no surface-info gathers (~2x less
@@ -389,44 +340,19 @@ def scene_anyhit(scene: Scene, o, d, t_max, coherent=True):
         t_all = shp.disk_intersect_t(o, d, t_max, scene.disks)
         hit = hit | jnp.any(t_all < t_max[..., None], axis=-1)
     if scene.mesh is not None:
-        # Shrink t_max for already-occluded rays to 0 so the traversal's
-        # box/triangle tests prune immediately (lockstep early-out).
+        # Shrink t_max for already-occluded rays to 0 so the traversal
+        # skips them.
         t_m = jnp.where(hit, 0.0, t_max)
-        if scene.octree is not None and not _use_packet_kernel(scene):
-            tm, ti, *_ = octmod.octree_traverse(
-                o, d, t_m, scene.octree, scene.mesh, scene.tri_mask)
-            hit = hit | (jnp.isfinite(tm) & (ti >= 0))
-        elif scene.octree is not None:
-            from computational_ray_tracer_tpu.ops import pallas_octree
-            if coherent:
-                hit = hit | pallas_octree.octree_anyhit_pallas(
-                    o, d, t_m, scene.packed_octree)
-            else:
-                # Sort the shadow wavefront into packet-coherent order
-                # first (values are per-ray, so ordering is invisible in
-                # the result); measured on the textured-dragon flagship:
-                # one unsorted depth-0 NEE wavefront took 26.8 s.
-                flat = lambda x: x.reshape((-1,) + x.shape[len(t_m.shape):])
-                of, df, tf = flat(o), flat(d), flat(t_m)
-                order = _packet_order(of, df, tf > 0.0)
-                h = pallas_octree.octree_anyhit_pallas(
-                    of[order], df[order], tf[order], scene.packed_octree,
-                    **_packet_kwargs(False))
-                unsorted = jnp.zeros_like(h).at[order].set(h)
-                hit = hit | unsorted.reshape(t_m.shape)
-        elif scene.use_pallas:
-            from computational_ray_tracer_tpu.ops import pallas_intersect
-            tm, ti, *_ = pallas_intersect.mesh_intersect_pallas(
-                o, d, t_m, scene.mesh, scene.tri_mask)
-            hit = hit | (ti >= 0)
+        if scene.octree is not None:
+            hit = hit | traversal.any_hit(o, d, t_m, scene.octree,
+                                          scene.mesh, scene.tri_mask)
         else:
             hit = hit | trimod.mesh_anyhit_brute(o, d, t_m, scene.mesh,
                                                  scene.tri_mask)
     return hit
 
 
-def scene_occluded(scene: Scene, p, wi, dist, eps=1e-3, n=None,
-                   coherent=True):
+def scene_occluded(scene: Scene, p, wi, dist, eps=1e-3, n=None):
     """Shadow-ray predicate: is anything between p and p + wi*dist?
 
     ``eps`` may be per-ray (scale-aware spawn offsets, see
@@ -443,7 +369,7 @@ def scene_occluded(scene: Scene, p, wi, dist, eps=1e-3, n=None,
     # end the ray just short of the light: relative shrink (survives scene
     # scaling) plus the spawn offset
     t_max = dist * (1.0 - 1e-3) - eps
-    return scene_anyhit(scene, o, wi, t_max, coherent=coherent)
+    return scene_anyhit(scene, o, wi, t_max)
 
 
 def texture_lookup(texture, uv):

@@ -4,7 +4,7 @@ Capability parity with the reference's simulation apps:
 
 - ``MuscleCrossbridgeApp`` (Applications/MuscleCrossbridgeApp.h:86-330):
   n0 = 10000 crossbridges, Bernoulli attach (f = 14/s) / detach (g = 126/s)
-  per step, spring-force accumulation Σ k·x(i), force-velocity sweep. TPU-
+  per step, spring-force accumulation Σ k·x(i), force-velocity sweep. Array-
   first: the whole bridge population is a vectorized state advanced by one
   ``lax.scan`` over time; the Bernoulli draws use the counter-based RNG so
   trajectories are reproducible.

@@ -1,14 +1,19 @@
-"""Native (C++) runtime components, loaded via ctypes.
+"""Native runtime components, loaded via ctypes.
 
-The reference implements its whole runtime in C++; here the JAX/XLA/Pallas
-path owns the device compute, and the one-shot host-side runtime pieces that
-are performance-critical — the octree builder
-(Octtree_Model::CreateOcttree capability, ~100x over the NumPy builder on
-large meshes) and the OBJ/PLY mesh loaders (AssetManager capability) — are
-C++ compiled on first use into ``libcrt_native.so``.
+The reference implements its whole runtime in C++; here JAX/XLA owns the
+device compute, and the one-shot host-side runtime pieces that are
+performance-critical — the octree builder (Octtree_Model::CreateOcttree
+capability, ~100x over the NumPy builder on large meshes) and the OBJ/PLY
+mesh loaders (AssetManager capability) — are C++ compiled on first use into
+``libcrt_native.so``.
 
 ``load()`` returns the ctypes library or None (missing toolchain), letting
 callers fall back to the NumPy implementations.
+
+``load_cuda()`` compiles the CUDA octree traversal (``octree_traverse.cu``)
+with nvcc on first use and returns the library. It only runs where a CUDA
+device is present, and a failed build raises: there is nothing to fall back
+to on the GPU.
 """
 
 from __future__ import annotations
@@ -23,9 +28,14 @@ _SO = os.path.join(_DIR, "libcrt_native.so")
 _SRC = [os.path.join(_DIR, "octree_builder.cpp"),
         os.path.join(_DIR, "mesh_loader.cpp"),
         os.path.join(_DIR, "ply_loader.cpp")]
+_CUDA_SRC = os.path.join(_DIR, "octree_traverse.cu")
+_CUDA_SO = os.path.join(_DIR, "build", "libcrt_cuda.so")
+_NVCC = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_cuda_lib = None
 
 
 class CrtOctree(ctypes.Structure):
@@ -94,3 +104,28 @@ def load():
         except Exception:
             _lib = None
         return _lib
+
+
+def _compile_cuda():
+    import jax.ffi
+    os.makedirs(os.path.dirname(_CUDA_SO), exist_ok=True)
+    tmp = f"{_CUDA_SO}.{os.getpid()}.tmp"
+    cmd = [_NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+           "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+           "-I", jax.ffi.include_dir(), "-o", tmp, _CUDA_SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
+    os.replace(tmp, _CUDA_SO)
+
+
+def load_cuda():
+    """Compile (if stale) and load the CUDA traversal library."""
+    global _cuda_lib
+    with _lock:
+        if _cuda_lib is None:
+            if (not os.path.exists(_CUDA_SO) or os.path.getmtime(_CUDA_SO)
+                    < os.path.getmtime(_CUDA_SRC)):
+                _compile_cuda()
+            _cuda_lib = ctypes.CDLL(_CUDA_SO)
+        return _cuda_lib

@@ -2,7 +2,7 @@
 //
 // The reference's asset layer is native C++ (Assimp import,
 // RayTracer/AssetManager.cpp:67-191: triangulated faces, per-corner attribute
-// resolution, missing-attribute defaults). This is the TPU framework's native
+// resolution, missing-attribute defaults). This is the framework's native
 // equivalent for the hot host-side load path: a single-pass tokenizer over a
 // whole-file buffer (no iostream/line splitting), with EXACTLY the semantics
 // of the Python oracle in utils/obj_loader.py:

@@ -1,4 +1,4 @@
-// Native octree builder for the TPU path tracer.
+// Native octree builder for the spectral path tracer.
 //
 // Host-side, one-shot scene setup (SURVEY §7 design stance #2): the
 // *capability* of Octtree_Model::CreateOcttree/AddTriangle/Split

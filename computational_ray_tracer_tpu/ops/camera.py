@@ -2,7 +2,7 @@
 
 Capability parity with ``RayTracer/Cameras.h:77-423`` (CameraBase basis/matrix
 handling, Orthographic, Perspective with thin-lens depth of field, Pinhole
-box camera, physical Thinlens), TPU-first: a camera is a frozen config whose
+box camera, physical Thinlens), array-first: a camera is a frozen config whose
 matrices are precomputed host-side; ``generate_rays(pixel_xy, u_lens)`` is a
 pure vectorized map from raster coordinates + lens uniforms to world-space
 ray origins/directions, vmappable and differentiable.

@@ -1,7 +1,7 @@
 """Color science: XYZ/RGB, color spaces, white balance, RGB↔spectral.
 
 Capability parity with the reference's ``ThirdParty/pbrv4/color.{h,cpp}`` and
-``colorspace.{h,cpp}``, TPU-first:
+``colorspace.{h,cpp}``, array-first:
 
 - colors are plain jnp ``(..., 3)`` arrays; conversions are 3x3 matmuls that
   XLA fuses into surrounding element-wise work.
@@ -10,7 +10,7 @@ Capability parity with the reference's ``ThirdParty/pbrv4/color.{h,cpp}`` and
 - The reference loads a 64^3 binary coefficient table from disk at startup
   (color.cpp:107-166, a file absent from its repo). We instead *solve* the
   Jakob-Hanika fit directly: a vmapped, jitted Levenberg-Marquardt over the
-  spectral round-trip runs on the TPU itself, both on demand (per material)
+  spectral round-trip runs on the device itself, both on demand (per material)
   and to generate a cached coefficient table.
 """
 
@@ -272,7 +272,8 @@ def _roundtrip_rgb(coeffs, rgb_from_xyz, illum_w, cmf_w):
     """RGB of reflectance sigmoid(coeffs) under the fit illuminant."""
     r = sigmoid_polynomial(coeffs, _FIT_LAM)          # (..., L)
     xyz = jnp.einsum("...l,cl->...c", r * illum_w, cmf_w, precision="highest")
-    return jnp.einsum("ij,...j->...i", rgb_from_xyz, xyz)
+    return jnp.einsum("ij,...j->...i", rgb_from_xyz, xyz,
+                      precision="highest")
 
 
 def _fit_tables(colorspace):
@@ -299,8 +300,9 @@ def _lm_fit(rgb, illum_w, cmf_w, rgb_from_xyz, n_iter=40):
         c, lm = carry
         r = resid(c)
         J = jax.jacfwd(resid)(c)
-        A = J.T @ J + lm * jnp.eye(3, dtype=c.dtype)
-        delta = jnp.linalg.solve(A, J.T @ r)
+        A = (jnp.matmul(J.T, J, precision="highest")
+             + lm * jnp.eye(3, dtype=c.dtype))
+        delta = jnp.linalg.solve(A, jnp.matmul(J.T, r, precision="highest"))
         c_new = c - delta
         better = jnp.sum(resid(c_new) ** 2) < jnp.sum(r ** 2)
         c = jnp.where(better, c_new, c)

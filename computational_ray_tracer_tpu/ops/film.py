@@ -3,7 +3,7 @@
 Capability parity with ``RayTracer/Film.h:6-20`` (per-pixel
 ``{rgbsum, weightsum}`` progressive accumulation) and the resolve path of
 ``RayTracerTestApp.h:425-452`` (sensor RGB → XYZ → colorspace RGB → sRGB),
-TPU-first: the film is a pytree of ``(H, W, 3)`` + ``(H, W)`` arrays; sample
+array-first: the film is a pytree of ``(H, W, 3)`` + ``(H, W)`` arrays; sample
 splats are either an aligned per-pixel sum (the common wavefront layout) or a
 scatter-add for free-flight samples. Accumulation is associative, so shards
 merge with a single ``psum``/``segment_sum`` (SURVEY §2.6 plan).

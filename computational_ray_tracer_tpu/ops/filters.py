@@ -5,8 +5,8 @@ Gaussian / LanczosSinc, filters.h:23-296): each filter importance-samples a
 pixel offset from ``u ∈ [0,1)^2`` and returns the ``FilterSample{p, weight}``
 pattern (filters.h:17-21) with ``weight = f(p) / pdf(p)``.
 
-TPU-first: box/triangle/gaussian sample *analytically* — closed-form inverse
-CDFs (erfinv for the Gaussian), pure VPU elementwise math with no table
+array-first: box/triangle/gaussian sample *analytically* — closed-form inverse
+CDFs (erfinv for the Gaussian), pure elementwise math with no table
 gathers in the per-sample hot path. Only the windowed sinc (negative lobes,
 no closed form) uses a small tabulated inverse CDF.
 """

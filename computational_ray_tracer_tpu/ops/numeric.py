@@ -3,7 +3,7 @@
 The reference's L0 numeric toolkit — compensated arithmetic, FP error
 bounds, polynomial evaluation, branchless interval search, Gaussian/sinc
 kernels, and tiny least-squares — re-expressed as elementwise jnp functions
-that batch over arbitrary shapes on the VPU. Several of these already live
+that batch over arbitrary shapes. Several of these already live
 inline next to their single caller (``ops/shapes.py`` has
 ``fp_gamma``/``difference_of_products``; ``ops/sampling.py`` has
 ``erf_inv``); this module is the explicit public surface and adds the
@@ -123,38 +123,20 @@ def linear_least_squares(A, B):
     (n, k) @ (k, m)). Host-or-device; tiny systems only."""
     A = jnp.asarray(A, jnp.float32)
     B = jnp.asarray(B, jnp.float32)
-    AtA = A.T @ A
-    AtB = A.T @ B
+    AtA = jnp.matmul(A.T, A, precision="highest")
+    AtB = jnp.matmul(A.T, B, precision="highest")
     return jnp.linalg.solve(AtA, AtB)
 
 
 # ---------------------------------------------------------------------------
-# Gather-free small-table row select (TPU)
+# Clamped small-table row select
 # ---------------------------------------------------------------------------
 
-_SELECT_UNROLL_MAX = 32
-
-
 def select_rows(tab, idx):
-    """``tab[idx]`` for a SMALL leading axis without a per-element gather.
-
-    TPU gathers serialize on the VPU (~0.3 ms per 65k-row gather even from
-    a 5-row table); for static M <= 32 an unrolled where-chain of
-    statically-indexed rows is pure vector selects (~30x faster). Falls
-    back to the native gather on CPU or for larger tables.
-
-    Out-of-range ``idx`` is CLAMPED to [0, M) on every backend (the
-    where-chain and a raw gather would otherwise disagree about idx < 0 /
-    idx >= M); callers passing sentinel rows must mask the result."""
-    import jax
+    """``tab[idx]`` with out-of-range ``idx`` CLAMPED to [0, M) (a raw jnp
+    gather would wrap negative indices); callers passing sentinel rows must
+    mask the result."""
     m = tab.shape[0]
     if m > 0:
         idx = jnp.clip(idx, 0, m - 1)
-    if jax.default_backend() != "tpu" or m > _SELECT_UNROLL_MAX or m == 0:
-        return tab[idx]
-    extra = tab.ndim - 1
-    mask = lambda k: (idx == k).reshape(idx.shape + (1,) * extra)
-    acc = jnp.broadcast_to(tab[0], idx.shape + tab.shape[1:])
-    for k in range(1, m):
-        acc = jnp.where(mask(k), tab[k], acc)
-    return acc
+    return tab[idx]

@@ -4,16 +4,18 @@ Capability parity with ``RayTracer/Octtree_Model.h:9-422`` (world-space
 per-model octree, leaf capacity 40 with 0.01 child padding, split aborted when
 all triangles land in one child, Möller triangle-box overlap gating, BFS
 traversal that shrinks t_max on leaf hits, and PrintInfo occupancy
-diagnostics), re-architected TPU-first:
+diagnostics), re-architected for a wavefront renderer:
 
-- the *build* runs host-side in vectorized NumPy (it is one-shot scene setup,
-  SURVEY §7 design stance #2) and emits flat int32/float32 node tensors:
-  ``node_lo/node_hi (M,3)``, ``node_child0 (M,)`` (8 children contiguous,
-  -1 for leaves), and per-leaf triangle lists padded to the leaf capacity;
-- *traversal* is a branch-free ``lax.while_loop`` with an explicit fixed-depth
-  stack per ray, vmapped/broadcast over the whole wavefront — all gathers and
-  elementwise VPU math, no pointer chasing;
-- traversal statistics (node visits, triangle tests — the reference's
+- the *build* runs host-side (native C++, NumPy as the reference; it is
+  one-shot scene setup, SURVEY §7 design stance #2) and emits flat
+  int32/float32 node tensors: ``node_lo/node_hi (M,3)``, ``node_child0
+  (M,)`` (8 children contiguous, -1 for leaves), and per-leaf triangle
+  lists padded to the leaf capacity;
+- ``octree_traverse`` is a branch-free ``lax.while_loop`` with an explicit
+  fixed-depth stack per ray, vmapped over the whole wavefront. It runs on
+  every platform without a kernel of its own and is the reference for the
+  CUDA traversal (``ops/traversal.py``);
+- traversal statistics (triangle tests — the reference's
   ``triangle_intersect_count``) come back as array outputs.
 """
 
@@ -36,7 +38,9 @@ TRIANGLE_CAPACITY = 40   # leaf split threshold (Octtree_Model.h:388)
 # default here is the same *relative* pad: 5e-4 x root max extent.
 CHILD_PADDING_FRAC = 5e-4
 MAX_DEPTH = 12
-# Worst-case stack growth is +7 per level (push 8, pop 1): 8*MAX_DEPTH + 8.
+# Worst-case stack growth is +7 per level (push 8, pop 1). Both traversals
+# (octree_traverse and native/octree_traverse.cu) use this size; build_octree
+# rejects a tree whose depth, split chains included, could overflow it.
 STACK_SIZE = 128
 # Disk-cache invalidation token for the BUILT TREE (co-located with the
 # builders so a semantic change can't forget it): bump whenever
@@ -217,10 +221,9 @@ def _split_oversized_leaves(tree: Octree, cap):
 
 
 def build_octree(mesh: trimod.MeshData, capacity=TRIANGLE_CAPACITY,
-                 max_depth=MAX_DEPTH, padding=None,
-                 backend="auto", pack=False, tri_mask=None):
+                 max_depth=MAX_DEPTH, padding=None, backend="auto"):
     """Top-down octree build over a (world-space) mesh. Returns an Octree of
-    flat device tensors (or ``(Octree, PackedOctree)`` with ``pack=True``).
+    flat device tensors.
     Splits stop at `capacity` triangles, `max_depth`, or when splitting
     fails to separate (the abort rule, Octtree_Model.h:331-340).
 
@@ -236,13 +239,9 @@ def build_octree(mesh: trimod.MeshData, capacity=TRIANGLE_CAPACITY,
     870k-tri mixed-scale mesh with the old root-relative pad; 2-3 avg
     with the level-relative pad).
 
-    The whole pipeline (build + oversized-leaf split + kernel packing) stays
-    in host NumPy and uploads each tensor to the device exactly ONCE —
-    device->host readbacks are pathologically slow on remote-attached TPUs
-    (MeshData.build stashes host copies as ``mesh._host`` for exactly this
-    reason). Heavy packed tensors (pre-gathered leaf vertices) are
-    materialized ON DEVICE from the compact id tables
-    (pallas_octree.pack_from_numpy)."""
+    The whole pipeline (build + oversized-leaf split) stays in host NumPy,
+    reading the mesh from the host copy MeshData.build keeps, and uploads
+    each tensor to the device once."""
     pos_np, idx_np = host_mesh_arrays(mesh)
     if padding is None:
         padding = CHILD_PADDING_FRAC
@@ -295,23 +294,36 @@ def build_octree(mesh: trimod.MeshData, capacity=TRIANGLE_CAPACITY,
         if cache_on:
             asset_cache.store(key, **{f: getattr(tree_np, f)
                                       for f in _FIELDS})
-    tree_dev = Octree(
+    depth = tree_depth(tree_np.node_child0)
+    if 7 * depth + 1 > STACK_SIZE:
+        raise ValueError(f"octree depth {depth} can overflow the "
+                         f"{STACK_SIZE}-entry traversal stack")
+    return Octree(
         node_lo=jnp.asarray(tree_np.node_lo),
         node_hi=jnp.asarray(tree_np.node_hi),
         node_child0=jnp.asarray(tree_np.node_child0),
         node_leaf_id=jnp.asarray(tree_np.node_leaf_id),
         leaf_tris=jnp.asarray(tree_np.leaf_tris),
         leaf_counts=jnp.asarray(tree_np.leaf_counts))
-    if not pack:
-        return tree_dev
-    from computational_ray_tracer_tpu.ops import pallas_octree
-    packed = pallas_octree.pack_from_numpy(tree_np, mesh, tri_mask)
-    return tree_dev, packed
+
+
+def tree_depth(node_child0):
+    """Levels below the root (0 for a root leaf), split chains included."""
+    child0 = np.asarray(node_child0)
+    depth = 0
+    level = np.array([0])
+    while True:
+        c0 = child0[level]
+        c0 = c0[c0 >= 0]
+        if c0.size == 0:
+            return depth
+        level = (c0[:, None] + np.arange(8)).reshape(-1)
+        depth += 1
 
 
 def host_mesh_arrays(mesh):
-    """(positions, indices) as host NumPy, using the build-time host stash
-    when present (avoids device->host readbacks; see MeshData.build)."""
+    """(positions, indices) as host NumPy, using the build-time host copy
+    when present (saves a device->host copy; see MeshData.build)."""
     host = getattr(mesh, "_host", None)
     if host is not None:
         return (np.asarray(host[0], np.float32),

@@ -3,7 +3,7 @@
 The reference's samplers are *stateful* objects (PCG32 + per-thread instances,
 ``ThirdParty/pbrv4/{rng.h:24-144, samplers.h:25-327}``) whose key property is
 that every draw is a pure function of ``(pixel, sampleIndex, dimension, seed)``
-(samplers.h:47-51, 91-99). On TPU we keep exactly that property but drop the
+(samplers.h:47-51, 91-99). Here we keep exactly that property but drop the
 state: every sample is computed directly from its coordinates with bijective
 integer hashing, so any chip/shard computes identical values for identical
 coordinates — placement-invariant determinism for free.
@@ -16,7 +16,7 @@ Three sampler tiers mirror the reference:
                        (SobolSampler capability, samplers.h:144-327; we use the
                        padded-per-pixel formulation which vectorizes cleanly)
 
-All functions are elementwise over arbitrary batch shapes and run on the VPU.
+All functions are elementwise over arbitrary batch shapes.
 """
 
 from __future__ import annotations
@@ -351,8 +351,8 @@ def sobol_sample_u32(index, dim):
     (elementwise over batches).
 
     Vectorized over the 32 index bits (mask-select + XOR tree reduction)
-    instead of a 32-step sequential fori_loop — the loop serializes the VPU
-    and was the dominant cost of every Sobol draw on TPU."""
+    instead of a 32-step sequential fori_loop, which would serialize every
+    Sobol draw into 32 dependent steps."""
     index = _u32(index)
     dim = _u32(dim)
     cols = _SOBOL_J[dim]                      # (..., 32) after gather
@@ -437,11 +437,11 @@ def sobol_owen_2d(seed, pixel, sample_idx, dim, spp=None):
 # The reference maps (pixel, sampleIndex) to the index of the global Sobol'
 # point whose first two dimensions land in that pixel (SobolIntervalToIndex
 # with precomputed uint64 VdC matrices). Here the same mapping is derived
-# from first principles in 32 bits (TPU has no uint64): with the image
+# from first principles in 32 bits (no uint64 on device): with the image
 # scaled to 2^m, the point index i = frame·4^m + j, and the low 2m bits j
 # solve a GF(2) linear system "top m bits of dims 0/1 == pixel coords".
 # The system's inverse is precomputed host-side per static m; on device the
-# solve is a 2m-term mask-XOR reduction — pure VPU bit ops.
+# solve is a 2m-term mask-XOR reduction — pure elementwise bit ops.
 
 import functools as _functools
 

@@ -1,7 +1,7 @@
 """Analytic, tabulated, discrete, and rejection samplers.
 
 Capability parity with the reference's sampling library
-(``/root/reference/RayTracer/Sampling.h:63-952``), expressed TPU-first: every
+(``/root/reference/RayTracer/Sampling.h:63-952``), expressed array-first: every
 sampler is a *pure function of an explicit uniform* ``u ∈ [0,1)`` (or a pair),
 elementwise over arbitrary batch shapes, differentiable where meaningful.
 Histogram validation lives in ``tests/test_sampling.py`` (chi-square replaces

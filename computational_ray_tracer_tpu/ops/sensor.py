@@ -5,7 +5,7 @@ spectral radiance → sensor RGB via r̄/ḡ/b̄ response curves, then sensor RG
 XYZ through a 3x3 matrix solved by linear least squares over the 24
 ColorChecker swatches under the sensor illuminant (pixelsensor.h:37-87).
 
-TPU-first: all calibration (the least-squares solve) happens host-side at
+array-first: all calibration (the least-squares solve) happens host-side at
 sensor construction in float64; the per-sample ``to_sensor_rgb`` is one fused
 gather+mean over the 8-wavelength axis on device.
 
@@ -119,9 +119,8 @@ class PixelSensor:
 
     def to_sensor_rgb(self, L, wl):
         """(..., S) radiance + SampledWavelengths → (..., 3) sensor RGB.
-        All three response curves are interpolated in one fused evaluation
-        (MXU one-hot dot on TPU — 11x faster than three serialized
-        gathers)."""
+        All three response curves are interpolated in one evaluation that
+        shares the wavelength indices and weights."""
         w = spec.safe_div(L, wl.pdf)                      # (..., S)
         bars = spec.sample_dense_multi(self.curves.T, wl.lam)  # (..., S, 3)
         rgb = jnp.mean(bars * w[..., None], axis=-2)      # (..., 3)

@@ -3,7 +3,7 @@
 Capability parity with ``RayTracer/Shapes.h:33-758`` (Ray, Bounds3 with the
 robust ``1+2*gamma(3)`` slab test, Shape transforms, clipped Sphere /
 Cylinder / Disk with PBRT-stable quadratic solves, hit refinement, and
-analytic dpdu/dpdv/normals), TPU-first:
+analytic dpdu/dpdv/normals), array-first:
 
 - rays are SoA arrays ``o (..., 3), d (..., 3), t_max (...)``;
 - shapes live in *type-tagged tensor tables* (one array per parameter, leading
@@ -40,7 +40,7 @@ def fp_gamma(n):
 
 def difference_of_products(a, b, c, d):
     """a*b - c*d with exact-product corrections (DifferenceOfProducts,
-    helpers.h:56-62). TPU has no scalar FMA exposed, so both products get a
+    helpers.h:56-62). jnp exposes no FMA, so both products get a
     Dekker-split error term; symmetric inputs (a*b == c*d exactly) yield an
     exact 0 — the property the watertight triangle test relies on."""
     ab = a * b
@@ -93,17 +93,19 @@ def make_transform(translate=(0, 0, 0), rotate_deg=(0, 0, 0), scale=1.0):
 def transform_point(m, p):
     """(..., 4, 4) x (..., 3) -> (..., 3)."""
     ph = jnp.concatenate([p, jnp.ones_like(p[..., :1])], axis=-1)
-    out = jnp.einsum("...ij,...j->...i", m, ph)
+    out = jnp.einsum("...ij,...j->...i", m, ph, precision="highest")
     return out[..., :3]
 
 
 def transform_vector(m, v):
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v,
+                      precision="highest")
 
 
 def transform_normal(m_inv, n):
     """Normals transform by the inverse transpose (Shapes.h:160-166)."""
-    return jnp.einsum("...ji,...j->...i", m_inv[..., :3, :3], n)
+    return jnp.einsum("...ji,...j->...i", m_inv[..., :3, :3], n,
+                      precision="highest")
 
 
 def transform_ray(m, o, d):
@@ -253,9 +255,9 @@ def sphere_intersect_t(o, d, t_max, tab: SphereTable):
     clip-and-retest-with-t1 semantics (Shapes.h:335-354).
 
     Computed shape-major — every intermediate is (M, n) with the RAY axis
-    on lanes — instead of broadcasting (N, M, 3) whose 3-wide minor axis
-    lane-pads 3 -> 128 on TPU (same orientation fix as the triangle-major
-    brute mesh test; per-pair math is unchanged)."""
+    minor — instead of broadcasting (N, M, 3) with a 3-wide minor axis
+    (same orientation as the triangle-major brute mesh test; per-pair math
+    is unchanged)."""
     batch = o.shape[:-1]
     n = int(np.prod(batch)) if batch else 1
     ox, oy, oz = (o.reshape(-1, 3)[:, k] for k in range(3))

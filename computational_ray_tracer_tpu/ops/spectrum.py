@@ -1,7 +1,7 @@
 """Hero-wavelength spectral core.
 
 Capability parity with the reference's PBRT-v4 spectral layer
-(``/root/reference/ThirdParty/pbrv4/spectrum.h:17-723``), designed TPU-first:
+(``/root/reference/ThirdParty/pbrv4/spectrum.h:17-723``), designed array-first:
 
 - A "SampledSpectrum" is just a jnp array with a trailing axis of
   ``N_SPECTRUM_SAMPLES`` (= 8, matching spectrum.h:19). All radiance /
@@ -17,7 +17,6 @@ Everything is differentiable and shape-polymorphic over leading batch dims.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any
 
 import jax
@@ -163,61 +162,18 @@ def _dense_idx_frac(lam):
     return i0, w, inside
 
 
-def _use_mxu_interp():
-    # TPU gathers serialize on the VPU (~10 ms for a (65k, 8) gather from a
-    # 471-entry table); a one-hot matmul with the generator fused into the
-    # MXU dot is 4-11x faster at f32 accuracy. On CPU the plain gather wins.
-    return jax.default_backend() == "tpu"
-
-
 def sample_dense_multi(tables, lam):
     """Interpolate C dense 1nm SPDs at once: tables (471, C), lam (..., S)
     -> (..., S, C). Out-of-range wavelengths return 0.
 
-    TPU path: the interpolation weights form a 2-nonzero-per-row matrix
-    W (n, 471); `W @ tables` evaluates ALL C curves in one MXU dot whose
-    one-hot generator XLA fuses into the operand load (nothing (n, 471) is
-    ever materialized). The W generation cost is shared across all C
-    columns — batch every curve needed at the same wavelengths into one
-    call. precision='highest' keeps f32-exact results (~3e-7 vs the
-    gather path)."""
+    Gathers whole (C,) rows, so batching every curve needed at the same
+    wavelengths into one call shares the index arithmetic."""
     tables = jnp.asarray(tables)
     i0, w, inside = _dense_idx_frac(lam)
-    if not _use_mxu_interp():
-        v0 = tables[i0]                     # (..., S, C) contiguous rows
-        v1 = tables[i0 + 1]
-        v = v0 * (1.0 - w[..., None]) + v1 * w[..., None]
-        return jnp.where(inside[..., None], v, 0.0)
-    n = int(np.prod(lam.shape)) if lam.shape else 1
-    c = tables.shape[1]
-    if (os.environ.get("CRT_PALLAS_INTERP", "0") == "1"
-            and n >= 4096 and tables.shape[0] <= 512 and c <= 128):
-        # Pallas one-hot-in-VMEM interp kernel. Measured NEGATIVE result
-        # for the render hot path, kept for standalone/batch use: alone it
-        # is 70x faster than the XLA one-hot dot (0.06 ms vs 4.2 ms — no
-        # 1 GB W materialization), but inside render_pass it is a fusion
-        # barrier (i0/w/out round-trip HBM and the dot no longer fuses
-        # with its producers/consumers): the full pass REGRESSED 0.083 ->
-        # 0.104 s. The fused XLA one-hot below is the hot-path winner.
-        from computational_ray_tracer_tpu.ops import pallas_interp
-        v = pallas_interp.dense_interp_pallas(
-            tables, i0.reshape(-1), w.reshape(-1),
-            interpret=jax.default_backend() != "tpu")
-        v = v.reshape(lam.shape + (c,))
-        return jnp.where(inside[..., None], v, 0.0)
-    fi = i0.reshape(n, 1)
-    fw = w.reshape(n, 1)
-    j = jnp.arange(tables.shape[0], dtype=jnp.int32)
-    W = (jnp.where(j == fi, 1.0 - fw, 0.0)
-         + jnp.where(j == fi + 1, fw, 0.0))
-    v = jnp.dot(W, tables, precision="highest")
-    v = v.reshape(lam.shape + (tables.shape[1],))
+    v0 = tables[i0]                     # (..., S, C) contiguous rows
+    v1 = tables[i0 + 1]
+    v = v0 * (1.0 - w[..., None]) + v1 * w[..., None]
     return jnp.where(inside[..., None], v, 0.0)
-
-
-# Row counts above this keep the flat-gather path (the one-hot row-select
-# materializes (..., S, M) intermediates).
-_MXU_ROWS_MAX = 32
 
 
 def sample_dense_rows(table, rows, lam):
@@ -225,54 +181,27 @@ def sample_dense_rows(table, rows, lam):
     wavelengths: table (M, 471), rows (...,) int32, lam (..., S) -> (..., S).
 
     Equivalent to ``sample_dense(table[rows], lam)`` but never materializes
-    the (..., 471) gathered rows. On TPU with small M this evaluates ALL M
-    rows via :func:`sample_dense_multi` (one MXU dot) and selects the row
-    with a one-hot reduction — 4x faster than the serialized gather.
+    the (..., 471) gathered rows: two scalar gathers from the flat table.
 
-    Out-of-range ``rows`` are CLAMPED to [0, M) so the where-chain, the
-    flat-gather path, and CPU all agree; callers with sentinel rows must
-    mask the result themselves."""
+    Out-of-range ``rows`` are CLAMPED to [0, M); callers with sentinel rows
+    must mask the result themselves."""
     table = jnp.asarray(table)
     m = table.shape[0]
     rows = jnp.clip(rows, 0, m - 1)
-    if _use_mxu_interp() and m <= _MXU_ROWS_MAX:
-        vals = sample_dense_multi(table.T, lam)          # (..., S, M)
-        out = vals[..., 0]
-        for k in range(1, m):                # static-M where-chain select
-            out = jnp.where((rows == k)[..., None], vals[..., k], out)
-        return out
-    x = lam - LAMBDA_MIN
-    i0 = jnp.clip(jnp.floor(x).astype(jnp.int32), 0, data.N_DENSE - 2)
-    w = jnp.clip(x - i0.astype(lam.dtype), 0.0, 1.0)
+    i0, w, inside = _dense_idx_frac(lam)
     base = rows[..., None].astype(jnp.int32) * data.N_DENSE
     flat = table.reshape(-1)
     v0 = flat[base + i0]
     v1 = flat[base + i0 + 1]
     v = v0 * (1.0 - w) + v1 * w
-    inside = (lam >= LAMBDA_MIN) & (lam <= LAMBDA_MAX)
     return jnp.where(inside, v, 0.0)
 
 
 def sample_dense_rows_multi(tables, rows, lam):
-    """Per-ray rows of SEVERAL (M, 471) tables at the same wavelengths in
-    one fused evaluation: tables a sequence of G arrays each (M, 471) ->
-    tuple of G arrays (..., S). The one-hot weight matrix is built once for
-    all G*M curves (the per-bounce pattern: emission + eta + k)."""
-    tabs = [jnp.asarray(t) for t in tables]
-    m = tabs[0].shape[0]
-    g = len(tabs)
-    rows = jnp.clip(rows, 0, m - 1)   # backend-agnostic out-of-range policy
-    if _use_mxu_interp() and m <= _MXU_ROWS_MAX:
-        stack = jnp.concatenate([t.T for t in tabs], axis=1)  # (471, G*M)
-        vals = sample_dense_multi(stack, lam)                 # (..., S, G*M)
-        vals = vals.reshape(lam.shape + (g, m))
-        # static-M where-chain row select (no (..., S, G, M) mask-mul-sum)
-        rmask = lambda k: (rows == k)[..., None, None]
-        out = vals[..., 0]
-        for k in range(1, m):
-            out = jnp.where(rmask(k), vals[..., k], out)      # (..., S, G)
-        return tuple(out[..., i] for i in range(g))
-    return tuple(sample_dense_rows(t, rows, lam) for t in tabs)
+    """Per-ray rows of SEVERAL (M, 471) tables at the same wavelengths:
+    tables a sequence of G arrays each (M, 471) -> tuple of G arrays
+    (..., S) (the per-bounce pattern: emission + eta + k)."""
+    return tuple(sample_dense_rows(t, rows, lam) for t in tables)
 
 
 # ---------------------------------------------------------------------------

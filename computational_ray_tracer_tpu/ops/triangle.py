@@ -3,11 +3,12 @@
 Capability parity with ``RayTracer/Shapes.h:760-1491`` (TriangleSimple's
 Cramer's-rule solve, the PBRT watertight Triangle test with conservative
 error bounds, barycentric surface interpolation with degenerate-UV fallback,
-TriModel grouping with backface culling and model-space AABBs), TPU-first:
+TriModel grouping with backface culling and model-space AABBs), as array
+code:
 
 - a mesh is a set of flat arrays (positions/normals/uvs/tangents/indices);
   per-triangle vertex fetch is a gather, the intersection test itself is
-  branch-free elementwise VPU code over (ray, triangle) pairs;
+  branch-free elementwise code over (ray, triangle) pairs;
 - the watertight algorithm (translate → permute dominant axis → shear →
   signed edge functions) uses an exact-product correction
   (``difference_of_products``) in place of the reference's double-precision
@@ -86,11 +87,11 @@ class MeshData:
         obj = cls(jnp.asarray(pos), jnp.asarray(normals), jnp.asarray(uvs),
                   jnp.asarray(tangents), jnp.asarray(bitangents),
                   jnp.asarray(idx))
-        # Host copies for the octree builders: device->host readbacks are
-        # pathologically slow on remote-attached TPUs (minutes for a
-        # dragon-class mesh), so build-time consumers use these instead.
-        # A plain attribute, NOT part of the pytree — instances that have
-        # round-tripped through jit lose it and callers must fall back.
+        # Host copies for the build-time consumers (octree builders, the
+        # world-radius bound), which would otherwise copy the mesh back
+        # from the device. A plain attribute, NOT part of the pytree —
+        # instances that have round-tripped through jit lose it and
+        # callers must fall back.
         obj._host = (pos, idx)
         return obj
 
@@ -227,18 +228,15 @@ def triangle_intersect(o, d, t_max, p0, p1, p2):
 
 
 def _triangle_intersect_tri_major(o, d, t_max, p0, p1, p2, tri_mask=None):
-    """Watertight test in triangle-major SoA layout: rays (n,) on the LANE
-    axis, triangles (F, 1) broadcast on the sublane axis -> every
-    intermediate is (F, n), fully lane-utilized.
+    """Watertight test in triangle-major SoA layout: rays (n,) on the minor
+    axis, triangles (F, 1) broadcast on the major axis -> every
+    intermediate is (F, n), contiguous along the rays.
 
-    The generic ``triangle_intersect`` broadcast orientation (n, F) puts F
-    on the minor (lane) axis — F=12 Cornell walls pad 12 -> 128 lanes
-    (10.7x wasted VPU work) — and its ``take_along_axis`` permutation
-    gathers per element (serializes on the VPU). Here permutation is
-    mask-select (three ``where``s) exactly like the Pallas leaf kernel.
-    Math per (ray, tri) pair is identical to ``triangle_intersect``
-    (same ops incl. DifferenceOfProducts + gamma t-bound), so results
-    match to fusion-rounding noise.
+    Unlike the generic ``triangle_intersect`` broadcast orientation (n, F),
+    the permutation is a mask-select (three ``where``s) instead of a
+    per-element ``take_along_axis``. Math per (ray, tri) pair is identical
+    to ``triangle_intersect`` (same ops incl. DifferenceOfProducts + gamma
+    t-bound), so results match to fusion-rounding noise.
 
     Returns (t_best (n,), j_best (n,) int32 in [0, F), b1, b2)."""
     batch = o.shape[:-1]
@@ -360,9 +358,7 @@ def mesh_intersect_brute(o, d, t_max, mesh: MeshData, tri_mask=None,
     p2 = mesh.positions[i[:, 2]]
 
     def run_block(p0b, p1b, p2b, maskb, t_cur):
-        # triangle-major (F, n) layout: rays on lanes (see
-        # _triangle_intersect_tri_major for why the (n, F) orientation is
-        # ~10x slower for small F on TPU).
+        # triangle-major (F, n) layout (see _triangle_intersect_tri_major)
         return _triangle_intersect_tri_major(o, d, t_cur, p0b, p1b, p2b,
                                              tri_mask=maskb)
 
@@ -432,67 +428,23 @@ def compute_backface_mask(mesh: MeshData, look_dir):
 # Surface interpolation (Triangle::CalculateLocalSurface, Shapes.h:982-1083)
 # ---------------------------------------------------------------------------
 
-# Meshes up to this many faces use the one-hot MXU attribute fetch on TPU
-# (per-ray gathers serialize on the VPU; a (rays, F) one-hot dot does not).
-_ONEHOT_FACES_MAX = 2048
-
-
-def _attrs_by_onehot(mesh, tri_idx, b0, b1, b2):
-    """Interpolated (p, n, uv, dpdu, dpdv) via three (rays, F) @ (F, 14)
-    dots — replaces ~18 serialized per-ray attribute gathers for small
-    meshes."""
-    f = mesh.n_triangles
-    cat = jnp.concatenate([mesh.positions, mesh.normals, mesh.uvs,
-                           mesh.tangents, mesh.bitangents], axis=1)  # (V,14)
-    sel = (tri_idx[..., None] ==
-           jnp.arange(f, dtype=jnp.int32)).astype(jnp.float32)  # (..., F)
-    flat_sel = sel.reshape(-1, f)
-
-    def slot(k):
-        a = cat[mesh.indices[:, k]]                     # (F, 14) tiny gather
-        return jnp.dot(flat_sel, a, precision="highest").reshape(
-            tri_idx.shape + (14,))
-
-    out = (b0[..., None] * slot(0) + b1[..., None] * slot(1)
-           + b2[..., None] * slot(2))
-    p, n, uv = out[..., 0:3], out[..., 3:6], out[..., 6:8]
-    dpdu, dpdv = out[..., 8:11], out[..., 11:14]
-    # Geometric normal for the degenerate-shading-normal fallback
-    p0 = jnp.dot(flat_sel, cat[mesh.indices[:, 0]][:, 0:3],
-                 precision="highest").reshape(tri_idx.shape + (3,))
-    p1 = jnp.dot(flat_sel, cat[mesh.indices[:, 1]][:, 0:3],
-                 precision="highest").reshape(tri_idx.shape + (3,))
-    p2 = jnp.dot(flat_sel, cat[mesh.indices[:, 2]][:, 0:3],
-                 precision="highest").reshape(tri_idx.shape + (3,))
-    return p, n, uv, dpdu, dpdv, p0, p1, p2
-
-
 def mesh_surface(o, d, t, tri_idx, b1, b2, mesh: MeshData):
-    """Barycentric surface info at mesh hits (vectorized gather + lerp;
-    one-hot MXU dots for small meshes on TPU)."""
+    """Barycentric surface info at mesh hits (vectorized gather + lerp)."""
     b0 = 1.0 - b1 - b2
     safe_idx = jnp.maximum(tri_idx, 0)
-    use_onehot = (jax.default_backend() == "tpu"
-                  and mesh.n_triangles <= _ONEHOT_FACES_MAX)
-    if use_onehot:
-        p, n, uv, dpdu, dpdv, p0, p1, p2 = _attrs_by_onehot(
-            mesh, safe_idx, b0, b1, b2)
-    else:
-        i = mesh.indices[safe_idx]
+    i = mesh.indices[safe_idx]
 
-        def lerp3(attr):
-            return (b0[..., None] * attr[i[..., 0]]
-                    + b1[..., None] * attr[i[..., 1]]
-                    + b2[..., None] * attr[i[..., 2]])
+    def lerp3(attr):
+        return (b0[..., None] * attr[i[..., 0]]
+                + b1[..., None] * attr[i[..., 1]]
+                + b2[..., None] * attr[i[..., 2]])
 
-        p = lerp3(mesh.positions)
-        n = lerp3(mesh.normals)
-        uv = (b0[..., None] * mesh.uvs[i[..., 0]]
-              + b1[..., None] * mesh.uvs[i[..., 1]]
-              + b2[..., None] * mesh.uvs[i[..., 2]])
-        dpdu = lerp3(mesh.tangents)
-        dpdv = lerp3(mesh.bitangents)
-        p0, p1, p2 = mesh.triangle_vertices(safe_idx)
+    p = lerp3(mesh.positions)
+    n = lerp3(mesh.normals)
+    uv = lerp3(mesh.uvs)
+    dpdu = lerp3(mesh.tangents)
+    dpdv = lerp3(mesh.bitangents)
+    p0, p1, p2 = mesh.triangle_vertices(safe_idx)
 
     nl = jnp.linalg.norm(n, axis=-1, keepdims=True)
     # Degenerate shading normal -> geometric normal fallback

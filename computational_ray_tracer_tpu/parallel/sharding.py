@@ -2,9 +2,9 @@
 
 The reference's only parallelism is a shared-memory CPU thread pool with a
 static pixel-range split and fork-join per sample pass
-(``RayTracerTestApp.h:349-409``; SURVEY §2.6). The TPU-native equivalent:
+(``RayTracerTestApp.h:349-409``; SURVEY §2.6). The JAX-native equivalent:
 
-- a ``Mesh`` over the pod slice with two logical axes: ``dp`` (pixels —
+- a ``Mesh`` over the devices with two logical axes: ``dp`` (pixels —
   the data-parallel axis, the analog of the reference's pixel ranges) and
   ``sp`` (samples per pixel — the sample/"sequence" axis);
 - the scene (shape tables, octree, materials, lights) is *replicated*; the
@@ -27,7 +27,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from computational_ray_tracer_tpu.ops import spectrum as spec
 from computational_ray_tracer_tpu.ops import film as filmmod
@@ -71,7 +70,7 @@ def _pass_for_pixels(scene, camera, cfg, filter_obj, sensor, pixel,
     elif cfg.integrator == "simple":
         # Must match render_pass's dispatch exactly: substituting MIS here
         # would change sample values sharded-vs-single for "simple" configs,
-        # breaking the determinism contract (VERDICT r4 weak #3).
+        # breaking the determinism contract.
         L, wl_out = integ.li_simple_path(scene, o, d, wl, pixel, sample_idx,
                                          cfg)
     else:
@@ -105,11 +104,11 @@ def make_sharded_render(scene_template, camera, cfg, mesh: Mesh):
         wt_add = jax.lax.psum(fw, "sp")
         return rgb_sum + rgb_add, wt_sum + wt_add
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(), P("dp", None), P("dp"), P("dp"), P()),
         out_specs=(P("dp", None), P("dp")),
-        check_rep=False)
+        check_vma=False)
 
     @jax.jit
     def step(scene, film: filmmod.Film, base_sample_idx):
@@ -178,11 +177,11 @@ def make_train_step(scene_template, camera, cfg, mesh: Mesh, param_labels,
         g = jax.lax.pmean(g, "dp")
         return l, g
 
-    sharded_grad = shard_map(
+    sharded_grad = jax.shard_map(
         grad_body, mesh=mesh,
         in_specs=(P(), P(), P("dp", None), P("dp"), P()),
         out_specs=(P(), P()),
-        check_rep=False)
+        check_vma=False)
 
     @jax.jit
     def train_step(params, opt_state, scene, target, sample_idx):
@@ -205,9 +204,9 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Multi-host bring-up (SURVEY §5 distributed-communication plan):
     ``jax.distributed.initialize`` per host, then a global mesh over every
-    chip in the slice. Collectives ride ICI within a slice (psum of film /
-    gradients), DCN across slices — XLA picks the transport from the mesh
-    device order. No-op on a single process.
+    device. Collectives (psum of film / gradients) take the fastest link
+    XLA finds between the devices (NVLink within a host, the network
+    across hosts). No-op on a single process.
 
     Returns (n_processes, global_device_count)."""
     import jax
@@ -221,8 +220,8 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
 def global_mesh(n_sp=1):
     """Mesh spanning every addressable chip across all hosts:
-    ('dp', 'sp') with dp = total_chips / n_sp. Host boundaries fall on the
-    dp axis so the sp (pixel-shard) collectives stay intra-host/ICI."""
+    ('dp', 'sp') with dp = total_devices / n_sp. Host boundaries fall on
+    the dp axis so the sp (sample-pass) collectives stay within a host."""
     import jax
 
     devs = jax.devices()

@@ -214,7 +214,7 @@ def dragon_stand_in(target_tris=870_000, scale=15.0, seed=11):
     a spiral "body" of overlapping blobs whose radii span ~30x and whose
     subdivision levels differ, so triangle areas vary by orders of
     magnitude and spatial density is concentrated along a curve — the
-    non-uniform-density workload VERDICT r3 asked for (a uniform icosphere
+    non-uniform-density workload (a uniform icosphere
     is octree-friendly; this is not).
 
     Returns (positions (V,3) f32, faces (F,3) i32, uvs (V,2) f32) with

@@ -3,7 +3,7 @@
 Capability parity with the reference's observability (SURVEY §5): the chrono
 ``Timer`` (Util/Timer.h:3-56), the per-sample-pass wall-time prints
 (RayTracerTestApp.h:399-409), and the global triangle-intersect counter
-(Shapes.h:909-911) — TPU-first: counters are *array outputs* of the kernels
+(Shapes.h:909-911) — array-first: counters are *array outputs* of the kernels
 (octree_traverse returns per-ray test counts), timers block on device
 results, metrics are structured JSON lines, and ``trace`` wraps
 ``jax.profiler`` for Perfetto dumps."""
@@ -87,7 +87,7 @@ class RenderMeter:
 
 @contextlib.contextmanager
 def trace(name, log_dir=None):
-    """jax.profiler trace context (Perfetto): the TPU answer to the
+    """jax.profiler trace context (Perfetto): the device-side answer to the
     reference's ad hoc timer prints."""
     import jax
     if log_dir is None:

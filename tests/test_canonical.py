@@ -1,7 +1,7 @@
 """The reference-canonical workload (benchmarks/canonical.py) must keep
 producing the committed golden: the one artifact that states 'the
-capabilities of the reference, on TPU' (RayTracerTestApp.h:103-207) is
-gated in CI too, not only in the TPU bench."""
+capabilities of the reference' (RayTracerTestApp.h:103-207) is gated in CI
+too, not only in the GPU bench and chip_smoke.py."""
 
 import os
 import sys

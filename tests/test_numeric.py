@@ -4,6 +4,7 @@ import math
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from computational_ray_tracer_tpu.ops import numeric as num
 
@@ -86,3 +87,13 @@ def test_linear_least_squares_recovers_exact_solution():
     B = A @ X_true
     X = np.asarray(num.linear_least_squares(A, B))
     np.testing.assert_allclose(X, X_true, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(5,), (4, 3)])
+def test_select_rows_is_clamped_gather(shape):
+    rng = np.random.default_rng(1)
+    tab = rng.normal(size=shape).astype(np.float32)
+    idx = np.array([[0, 3, -2], [7, 1, 2]], np.int32)
+    got = np.asarray(num.select_rows(jnp.asarray(tab), jnp.asarray(idx)))
+    want = tab[np.clip(idx, 0, shape[0] - 1)]
+    np.testing.assert_array_equal(got, want)

@@ -152,8 +152,7 @@ def test_u32_to_float_range():
 
 
 # ---------------------------------------------------------------------------
-# Sobol direction-number table quality (VERDICT r4 weak #5: no invented
-# initials in the consumed range; tail dims validated, not asserted)
+# Sobol direction-number table quality
 # ---------------------------------------------------------------------------
 
 def test_sobol_published_rows_structural():
@@ -209,8 +208,8 @@ def test_sobol_2d_projection_t_values_bounded():
 
 
 def test_sobol_deep_dims_chi_square_uniform():
-    """Chi-square uniformity of deep-dimension 2D projections (the
-    validation VERDICT r4 asked for on dims 30+): 4096 raw-net points in
+    """Chi-square uniformity of deep-dimension 2D projections (dims 30+):
+    4096 raw-net points in
     16x16 bins. The CBC tail (rows 37+) is constrained to zero diagonal
     rank deficiency through j=4, so its consecutive pairs are EXACTLY
     equidistributed here (chi2 = 0; random points give E[chi2] ~ 255).

@@ -251,3 +251,41 @@ def test_stable_quadratic():
     assert float(t0 * t1) == pytest.approx(1.0, rel=1e-3)
     assert float(t0) == pytest.approx(-1e4, rel=1e-3)
     assert float(t1) == pytest.approx(-1e-4, rel=1e-3)
+
+
+def test_mesh_surface_matches_numpy():
+    """Barycentric attribute interpolation (gather + lerp) against a NumPy
+    reference, including the flip toward the viewer and the tri_idx = -1
+    placeholder rows."""
+    v, f, uv = mesh_gen.displaced_icosphere(1)
+    mesh = trimod.MeshData.build(v, f, uvs=uv)
+    rng = np.random.default_rng(5)
+    n = 32
+    tri = rng.integers(0, mesh.n_triangles, n).astype(np.int32)
+    tri[:3] = -1
+    b1 = rng.uniform(0.0, 0.5, n).astype(np.float32)
+    b2 = rng.uniform(0.0, 0.5, n).astype(np.float32)
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 3.0
+    d = -o / np.linalg.norm(o, axis=1, keepdims=True)
+    t = np.where(tri >= 0, 1.0, np.inf).astype(np.float32)
+    si = trimod.mesh_surface(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t),
+                             jnp.asarray(tri), jnp.asarray(b1),
+                             jnp.asarray(b2), mesh)
+
+    idx = np.asarray(mesh.indices)[np.maximum(tri, 0)]
+    w = np.stack([1.0 - b1 - b2, b1, b2], 1)[..., None]
+
+    def lerp(attr):
+        return np.sum(w * np.asarray(attr)[idx], axis=1)
+
+    np.testing.assert_allclose(np.asarray(si.p), lerp(mesh.positions),
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(si.uv), lerp(mesh.uvs), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(si.dpdu), lerp(mesh.tangents),
+                               atol=1e-5)
+    nrm = lerp(mesh.normals)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    wo = -d
+    nrm = np.where(np.sum(nrm * wo, 1, keepdims=True) < 0, -nrm, nrm)
+    np.testing.assert_allclose(np.asarray(si.n), nrm, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(si.valid), tri >= 0)

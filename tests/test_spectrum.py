@@ -145,3 +145,55 @@ def test_illuminant_a_is_2856K_blackbody():
     bb = data.blackbody(data.DENSE_LAMBDA, 2856.0)
     bb = bb / np.interp(560.0, data.DENSE_LAMBDA, bb)
     np.testing.assert_allclose(a, bb, rtol=2e-3)
+
+
+def _interp_rows_np(table, rows, lam):
+    """NumPy reference: per-ray row of a dense 1 nm table, linearly
+    interpolated at each wavelength, 0 outside [360, 830]."""
+    rows = np.clip(rows, 0, table.shape[0] - 1)
+    grid = np.asarray(data.DENSE_LAMBDA, np.float64)
+    out = np.zeros(lam.shape)
+    for i in np.ndindex(rows.shape):
+        out[i] = np.interp(lam[i], grid, table[rows[i]], left=0.0,
+                           right=0.0)
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_sample_dense_rows_matches_numpy(m):
+    rng = np.random.default_rng(m)
+    table = rng.uniform(0.0, 2.0, (m, data.N_DENSE)).astype(np.float32)
+    rows = rng.integers(-1, m + 1, (6, 5)).astype(np.int32)
+    lam = rng.uniform(340.0, 850.0, (6, 5, 8)).astype(np.float32)
+    got = np.asarray(spec.sample_dense_rows(jnp.asarray(table),
+                                            jnp.asarray(rows),
+                                            jnp.asarray(lam)))
+    np.testing.assert_allclose(got, _interp_rows_np(table, rows, lam),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_sample_dense_rows_multi_matches_numpy():
+    rng = np.random.default_rng(9)
+    tables = [rng.uniform(0.0, 2.0, (3, data.N_DENSE)).astype(np.float32)
+              for _ in range(3)]
+    rows = rng.integers(0, 3, (40,)).astype(np.int32)
+    lam = rng.uniform(360.0, 830.0, (40, 8)).astype(np.float32)
+    got = spec.sample_dense_rows_multi([jnp.asarray(t) for t in tables],
+                                       jnp.asarray(rows), jnp.asarray(lam))
+    assert len(got) == 3
+    for g, t in zip(got, tables):
+        np.testing.assert_allclose(np.asarray(g),
+                                   _interp_rows_np(t, rows, lam),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_sample_dense_multi_matches_numpy():
+    rng = np.random.default_rng(4)
+    tables = rng.uniform(0.0, 1.0, (data.N_DENSE, 5)).astype(np.float32)
+    lam = rng.uniform(350.0, 840.0, (7, 8)).astype(np.float32)
+    got = np.asarray(spec.sample_dense_multi(jnp.asarray(tables),
+                                             jnp.asarray(lam)))
+    for c in range(5):
+        want = _interp_rows_np(tables.T[c:c + 1],
+                               np.zeros(lam.shape[:-1], np.int32), lam)
+        np.testing.assert_allclose(got[..., c], want, rtol=1e-5, atol=1e-6)

@@ -2,7 +2,7 @@
 CBC search minimizing 2D-projection t-values against all earlier dims
 (ops/sobol_quality.py; the Joe-Kuo D(6)-style criterion).
 
-Run:  PYTHONPATH= JAX_PLATFORMS=cpu python tools/gen_sobol_tail.py
+Run:  JAX_PLATFORMS=cpu python tools/gen_sobol_tail.py
 
 Writes computational_ray_tracer_tpu/ops/data/sobol_tail.npz and prints a
 per-dim quality report. Deterministic (fixed PCG64 seed): re-running
